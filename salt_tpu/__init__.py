@@ -1,8 +1,7 @@
-"""salt_tpu — a TPU-native SNP-aware short-read alignment engine.
+"""salt_tpu — an SNP-aware short-read alignment engine in JAX.
 
 A from-scratch rebuild of the capabilities of the `salt` aligner
-(reference: /root/reference, C/pthreads/SSE2) as a batched JAX/XLA/Pallas
-program:
+(C/pthreads/SSE2) as batched JAX/XLA array programs:
 
 * the SNP-augmented FM-index (C-part genome BWT + R-part local-pattern BWT)
   becomes bit-plane rank tables + full suffix-array gather tables laid out

@@ -174,7 +174,7 @@ def main(argv=None):
 
         if args.threads != 1:
             print(f"[aln] -t {args.threads} ignored: batches are "
-                  "data-parallel on the TPU; use --part-dir + multiple "
+                  "data-parallel on the device; use --part-dir + multiple "
                   "processes to scale hosts", file=sys.stderr)
         if args.num != -1:
             print("[aln] -n is inert (the reference overwrites max_diff "

@@ -77,8 +77,8 @@ class SaltIndex:
     r_cumfreq: np.ndarray  # uint32[6]: cumulativeFreq[c] = # chars < c
     r_primary: int
     r_coord: np.ndarray    # uint32[T+1] genome coord per rank (or UINT32_MAX)
-    # exact 12-mer jump table for the R text (sp/ep per kmer) — a
-    # TPU-side addition (no reference counterpart): skips 12 of the
+    # exact 12-mer jump table for the R text (sp/ep per kmer) — an
+    # addition with no reference counterpart: skips 12 of the
     # l_seed LF steps per seed.  Exact-parity safe: equals 12 backward
     # LF steps from the full interval.
     r_lkt_sp: np.ndarray = None   # uint32[4^12]

@@ -281,15 +281,10 @@ def locate(
         slot t -> seed index: the covering seed is the first one whose
         inclusive cumsum exceeds t, i.e. seed_idx = #{j : cum[j] <= t}
         (searchsorted side="right").  Computed as an all-compare
-        reduction — pure broadcast compare + sum on the VPU, which XLA
-        fuses without materializing (B, |slots|, 2S).  Zero-count seeds
+        reduction — pure broadcast compare + sum, which XLA fuses
+        without materializing (B, |slots|, 2S).  Zero-count seeds
         share their predecessor's cum value and are skipped for free.
-        This replaces a scatter-max + running-max scan whose TPU
-        lowering was pathological to compile (round-3 finding: the
-        scatter variant put se_ungapped's XLA:TPU compile beyond 10
-        minutes), and a binary-search gather formulation whose
-        per-element row gathers ran 5x slower than the whole round-2
-        locate step.  Returns (pos, valid_push) for the block."""
+        Returns (pos, valid_push) for the block."""
         seed_idx = jnp.sum(
             cum[:, None, :] <= slots[None, :, None], axis=-1,
             dtype=jnp.int32,

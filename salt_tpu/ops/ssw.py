@@ -19,6 +19,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.metrics import count
+
 # alnpe.c:52-56
 SCORE_MAT5 = np.array(
     [
@@ -470,6 +472,7 @@ def ssw_align(
 
     Dispatches to the native library when present; the pure-numpy lane
     emulation below is the validation oracle and fallback."""
+    count("ssw.host")
     r = ssw_align_native(read, ref, mat, gapO, gapE, maskLen, want_cigar)
     if r is not None:
         return r

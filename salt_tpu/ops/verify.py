@@ -67,20 +67,16 @@ def checked_mask(loci: Loci, l_mref: int) -> jnp.ndarray:
 def compact_loci(loci: Loci, checked: jnp.ndarray, u: int):
     """Keep the first `u` checked slots per read (order preserved):
     slot i gathers the (i+1)-th checked candidate, found by a per-row
-    binary search over the running checked count (scatters compile
-    pathologically slowly on the TPU backend — round-3 finding).
+    search over the running checked count (no scatter).
     Returns (pos (B,u) uint32, keep (B,u) bool, overflow (B,) bool)."""
     B, CAP = checked.shape
     csum = jnp.cumsum(checked.astype(jnp.int32), axis=-1)
     n_checked = csum[:, -1]
     ranks = jnp.arange(1, u + 1, dtype=jnp.int32)
     # index of the rank-th checked slot = #{j : csum[j] < rank}
-    # (searchsorted side="left" as an all-compare reduction; the
-    # binary-search gather form was 5x slower on TPU, see locate.py).
-    # The compare is chunked through a fori_loop: one fused
-    # (B, u, CAP) reduction put this program's XLA:TPU compile at
-    # 60-80s (the round's bench-budget hazard); a small loop body
-    # compiles in seconds at the same runtime cost.
+    # (searchsorted side="left" as an all-compare reduction).  The
+    # compare is chunked through a fori_loop so no (B, u, CAP)
+    # intermediate is materialized.
     CH = 128
     if CAP % CH or CAP <= CH:
         src = jnp.sum(
@@ -240,8 +236,7 @@ def replay_and_select(
     )
 
     def compact(hs, cs, ps):
-        # first-k compaction by rank selection (stable-argsort over the
-        # hit mask compiled pathologically on TPU; see compact_loci)
+        # first-k compaction by rank selection (see compact_loci)
         csum = jnp.cumsum(hs.astype(jnp.int32), axis=-1)
         ranks = jnp.arange(1, k_hits + 1, dtype=jnp.int32)
         src = jnp.sum(

@@ -1,7 +1,7 @@
 """Multi-host data-parallel alignment driver.
 
 The reference scales with pthreads in one process (alnse.c:1268-1310);
-the TPU-native equivalent is data parallelism over reads across hosts
+the equivalent here is data parallelism over reads across hosts
 (SURVEY.md §2.6): every host streams its own deterministic shard of the
 FASTQ (batch-interleaved), aligns on its local devices, and writes
 per-batch part files; any host (or a post step) concatenates the parts

@@ -208,14 +208,17 @@ class ShardedSEAligner(SEAligner):
         mesh = self.mesh
         o = self.opts
 
-        def step(tree, base_off, lpac, lp0, lk0, lp1, lk1, sel, sf, sr):
+        def step(tree, base_off, lpac, lp0, lk0, lp1, lk1, sel, rsel, sf,
+                 sr):
+            # sel picks rows of the loci arrays, rsel the same reads in
+            # the batch (they differ for the full-cap re-run's loci)
             tree = jax.tree_util.tree_map(lambda a: a[0], tree)
             base_off = base_off[0].astype(jnp.uint32)
             lpac = lpac[0]
             loci0 = Loci(pos=lp0[0][sel], pushed=lk0[0][sel])
             loci1 = Loci(pos=lp1[0][sel], pushed=lk1[0][sel])
             g = se_gapped(
-                tree, sf[sel], sr[sel], loci0, loci1, k=k, u=u, k_hits=u,
+                tree, sf[rsel], sr[rsel], loci0, loci1, k=k, u=u, k_hits=u,
             )
             hpos, hnd = _shard_hits_global(g.res, base_off, lpac)
             ghp = jax.lax.all_gather(hpos, "shard")
@@ -232,7 +235,7 @@ class ShardedSEAligner(SEAligner):
                                        self.stacked.tree),
                 P("shard"), P("shard"),
                 P("shard"), P("shard"), P("shard"), P("shard"),
-                P(), P(), P(),
+                P(), P(), P(), P(),
             ),
             out_specs=P("shard"),
             check_vma=False,
@@ -328,22 +331,22 @@ class ShardedSEAligner(SEAligner):
                 # rows sharing one re-run sub-batch are grouped
                 by_batch = {}
                 for r in ovf_gap:
-                    arrs, i, n = full_loci[r]
-                    by_batch.setdefault(id(arrs), (arrs, n, []))[2].append(
+                    arrs, i, _n = full_loci[r]
+                    by_batch.setdefault(id(arrs), (arrs, []))[1].append(
                         (r, i)
                     )
-                for arrs, n, pairs in by_batch.values():
+                for arrs, pairs in by_batch.values():
                     rows = np.array([r for r, _ in pairs])
                     sel_local = np.array([i for _, i in pairs])
                     self._run_gapped_rows(
-                        rows, len(rows), o.full_cap(), k, o.full_cap(), K,
+                        rows, 8, o.full_cap(), k, o.full_cap(), K,
                         arrs, fwd, rev, gap_res, retry_wide=False,
-                        sel_override=sel_local, pad_to=n,
+                        sel_override=sel_local,
                     )
         return res, needs_gap, gap_res, full_res
 
     def _run_gapped_rows(self, rows, sub, cap, k, u, K, loci_arrs, fwd, rev,
-                         gap_res, retry_wide, sel_override=None, pad_to=None):
+                         gap_res, retry_wide, sel_override=None):
         """Run the sharded gapped program over `rows` in fixed sub-batches
         and decode into gap_res; rows whose gapped verify overflowed the
         compact width are re-run at the full cap width."""
@@ -357,15 +360,14 @@ class ShardedSEAligner(SEAligner):
                 rr = rows[s0 : s0 + sub]
                 sel_rows = (sel_override[s0 : s0 + sub]
                             if sel_override is not None else rr)
-                pad = sub - len(rr)
-                sel = np.concatenate(
-                    [sel_rows, np.zeros(pad, dtype=np.int32)]
-                ).astype(np.int32)
+                pad = np.zeros(sub - len(rr), dtype=np.int32)
+                sel = np.concatenate([sel_rows, pad]).astype(np.int32)
+                rsel = np.concatenate([rr, pad]).astype(np.int32)
                 fn = self._prog_gapped(cap, k, u, K)
                 gp = fn(
                     self._tree_dev, self._base_dev, self._lpac_dev,
                     lp0, lk0, lp1, lk1, self._rep(jnp.asarray(sel)),
-                    fwd, rev,
+                    self._rep(jnp.asarray(rsel)), fwd, rev,
                 )
                 gr = unpack_result(np.asarray(gp)[0][: len(rr)], K)
                 for i, r in enumerate(rr):

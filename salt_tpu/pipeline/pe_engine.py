@@ -18,8 +18,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
 from ..constants import (
@@ -37,6 +35,7 @@ from ..io.fasta import read_records, trim_readno
 from ..io.sam import emit_pe, sam_header
 from ..ops.lv import NT2BIT_NP, lv_cigar_host
 from ..ops.ssw import SCORE_MAT5, SCORE_MAT16, ssw_align
+from ..utils.metrics import count
 from .engine import SEOptions, SEAligner, gen_mapq, revcomp, set_hits
 
 
@@ -45,12 +44,11 @@ class PEOptions(SEOptions):
     min_tlen: int = DEFAULT_MIN_TLEN
     max_tlen: int = DEFAULT_MAX_TLEN
     use_sw_singleton: bool = True  # pairing_singleton always runs (alnpe.c:513)
-    # device_sw / device_sw_min_batch (the batched rescue pre-filter)
-    # are inherited from SEOptions: a rescue candidate whose
-    # textbook-affine score is below thres_score cannot pass SSW's
-    # threshold either (sw_batch.py), so only survivors run the exact
-    # host SSW.  "auto" = on when a TPU is the default backend and the
-    # batch has enough candidates to amortize the dispatch.
+    # device_sw (the batched rescue pre-filter) is inherited from
+    # SEOptions: a rescue candidate whose textbook-affine score is below
+    # thres_score cannot pass SSW's threshold either (sw_batch.py), so
+    # only survivors run the exact host SSW.  For PE only "on" enables
+    # it; "auto" and "off" keep rescue on the host.
 
 
 class _End:
@@ -680,7 +678,9 @@ class PEAligner:
         device.  Returns {pair_idx: [score per request]} or None when
         the pre-filter is disabled/not worthwhile."""
         o = self.opts
-        if o.device_sw == "off":
+        # "auto" keeps PE rescue on the host: on an H100 the pre-filter
+        # has shown no PE gain (PERF.md), unlike -X 1 extension
+        if o.device_sw != "on":
             return None
         items = []   # (pi, k, snp, other, start, end, strand)
         for pi, (_e0, _e1, mode, reqs) in enumerate(states):
@@ -690,13 +690,8 @@ class PEAligner:
                                   start, end, strand))
         if not items:
             return None
-        if o.device_sw == "auto":
-            if jax.default_backend() != "tpu":
-                return None
-            if len(items) < o.device_sw_min_batch:
-                return None
 
-        from ..ops.sw_batch import sw_score_dispatch
+        from ..ops.sw_batch import sw_score_rows
 
         idx = self.index
         l_pac = idx.l_pac
@@ -740,9 +735,8 @@ class PEAligner:
                     # padding rows never raise the local max
                     reads[i, other.l_seq :] = 4
                     reads[i, : other.l_seq] = seq
-            sc = np.asarray(sw_score_dispatch(
-                jnp.asarray(refs), jnp.asarray(reads), jnp.asarray(lens),
-                snp_mode=snp_mode))
+            sc = sw_score_rows(refs, reads, lens, snp_mode=snp_mode)
+            count("sw.device.rescue", B)
             for i, (pi, k, *_rest) in enumerate(live):
                 scores_map[pi][k] = int(sc[i])
         return scores_map

@@ -22,7 +22,6 @@ import jax.numpy as jnp
 from ..constants import GAP_WINDOW_PAD, NOGAP_MAX_DIFF, UINT32_MAX
 from ..ops.locate import Loci, locate, sort_loci
 from ..ops.lv import lv_distance_batch
-from ..ops.lv_pallas import lv_distance_batch_pallas
 from ..ops.seed import seed_overlap
 from ..ops.verify import (
     SEResult,
@@ -33,40 +32,6 @@ from ..ops.verify import (
     replay_and_select,
 )
 from .device_index import DeviceIndex
-
-import os as _os
-
-# The serialized executables of the verify-family programs are toxic to
-# LOAD through the relay terminal: a persistent-cache hit stalls the
-# deserialize/load RPC for 15-20+ minutes (observed repeatedly, round
-# 3), while a fresh compile takes ~60-80s.  First call per process runs
-# with the compilation cache disabled so these programs are always
-# compiled fresh and never written.  SALT_TPU_VERIFY_CACHE=1 restores
-# normal caching (e.g. for CPU test runs, where the cache is fine).
-_VERIFY_NO_CACHE = _os.environ.get("SALT_TPU_VERIFY_CACHE", "0") != "1"
-_nocache_done: set = set()
-
-
-def _nocache_first_call(tag: str, fn, *args, **kw):
-    key = (tag,) + tuple(
-        (tuple(a.shape), str(a.dtype))
-        for a in jax.tree_util.tree_leaves(args)
-        if hasattr(a, "shape")
-    ) + tuple(sorted(kw.items()))
-    if not _VERIFY_NO_CACHE or key in _nocache_done:
-        return fn(*args, **kw)
-    old = jax.config.jax_compilation_cache_dir
-    try:
-        jax.config.update("jax_compilation_cache_dir", None)
-        out = fn(*args, **kw)
-    finally:
-        jax.config.update("jax_compilation_cache_dir", old)
-    # mark done only on success: a retried first call after a failure
-    # must still run uncached, or the retry could persist exactly the
-    # executable this guard keeps out of the cache
-    _nocache_done.add(key)
-    return out
-
 
 class UngappedOut(NamedTuple):
     res: SEResult
@@ -211,16 +176,9 @@ def se_ungapped(
     sampled=None,
     chunk: int = None,   # locate column-block size (ops/locate.py)
 ) -> UngappedOut:
-    """The ungapped device step, as THREE chained jit programs.
-
-    A single fused program is semantically identical but pathological to
-    compile on the XLA:TPU backend (round-3 finding: the individual
-    stage programs compile in 4-20s each, while any graph fusing
-    seed/locate with verify/replay runs past 13 minutes in the backend's
-    fusion/layout passes — round 2's bench timeout).  Splitting at the
-    locate/verify and verify/replay boundaries keeps every intermediate
-    on device — the only cost is two extra dispatches per batch (~10us
-    each) against a ~300ms step."""
+    """The ungapped device step, as three chained jit programs (seed +
+    locate, verify, replay + select).  Every intermediate stays on the
+    device; the split costs two extra dispatches per batch."""
     # locate packs the seed offset into 11 bits (ops/locate.py)
     assert seq_f.shape[1] <= 2047, "reads longer than 2047bp unsupported"
     seq2, lc, loc_ovf = _se_seed_locate(
@@ -228,8 +186,7 @@ def se_ungapped(
         max_locate=max_locate, cap=cap, pe_mode=pe_mode, sampled=sampled,
         chunk=chunk,
     )
-    v, ovf = _nocache_first_call("verify", _se_verify, dix, seq2, lc,
-                                 loc_ovf, u=u)
+    v, ovf = _se_verify(dix, seq2, lc, loc_ovf, u=u)
     return _se_select(v, ovf, lc, k_hits=k_hits)
 
 
@@ -270,10 +227,8 @@ def se_ungapped_full(
     k_hits: int = 16,
 ) -> SEResult:
     """Full-width verify fallback for reads whose unique-candidate count
-    exceeded the compact width (rare).  Reuses located loci.  Split at
-    the verify/replay boundary like se_ungapped (compile pathology)."""
-    v = _nocache_first_call("verify_full", _se_verify_full, dix, seq_f,
-                            seq_r, loci0, loci1)
+    exceeded the compact width (rare).  Reuses located loci."""
+    v = _se_verify_full(dix, seq_f, seq_r, loci0, loci1)
     return _se_select_res(v, k_hits=k_hits)
 
 
@@ -293,19 +248,13 @@ def _gapped_checked(loci: Loci, L: int, l_mref: int):
     return loci.pushed & (pos != prev) & (end_u < jnp.uint32(l_mref))
 
 
-def _gapped_verify(dix, loci, seq, u, k, lv_variant):
+def _gapped_verify(dix, loci, seq, u, k):
     B, L = seq.shape
     checked = _gapped_checked(loci, L, dix.l_pac)
     pos, keep, ovf = compact_loci(loci, checked, u)
     end_u = pos + jnp.uint32(L + GAP_WINDOW_PAD)
     in_ref = keep & (pos <= jnp.uint32(dix.l_pac)) & (end_u <= jnp.uint32(dix.l_pac))
-    # the Pallas tile kernel keeps the whole wavefront DP in VMEM;
-    # CPU uses the jnp reference version
-    if jax.default_backend() == "tpu":
-        lv_fn = partial(lv_distance_batch_pallas, variant=lv_variant)
-    else:
-        lv_fn = lv_distance_batch
-    d = lv_fn(
+    d = lv_distance_batch(
         dix.mixref_words,
         pos.astype(jnp.int32).reshape(-1),
         in_ref.reshape(-1),
@@ -317,7 +266,7 @@ def _gapped_verify(dix, loci, seq, u, k, lv_variant):
     return StrandVerify(counts=counts, checked=keep, pos=pos), ovf
 
 
-@partial(jax.jit, static_argnames=("k", "u", "lv_variant"))
+@partial(jax.jit, static_argnames=("k", "u"))
 def _se_gapped_verify(
     dix: DeviceIndex,
     seq_f: jnp.ndarray,   # (Bg, L)
@@ -326,12 +275,11 @@ def _se_gapped_verify(
     loci1: Loci,
     k: int,
     u: int,
-    lv_variant: str = None,
 ):
     seq2 = jnp.concatenate([seq_f, seq_r], axis=0).astype(jnp.int32)
     lc = Loci(*(jnp.concatenate([a, b], axis=0)
                 for a, b in zip(loci0, loci1)))
-    return _gapped_verify(dix, lc, seq2, u, k, lv_variant)
+    return _gapped_verify(dix, lc, seq2, u, k)
 
 
 @partial(jax.jit, static_argnames=("k", "k_hits"))
@@ -356,11 +304,6 @@ def se_gapped(
     k_hits: int = 16,
 ) -> GappedOut:
     """Gapped (Landau-Vishkin) check, split at the verify/replay
-    boundary like se_ungapped (XLA:TPU fusion-pass compile pathology).
-    The LV kernel variant env var is resolved HERE, outside the jit, so
-    changes between calls are honored even for compiled shapes."""
-    lv_variant = _os.environ.get("SALT_TPU_LV_KERNEL", "v1")
-    v, ovf = _nocache_first_call("gapped_verify", _se_gapped_verify, dix,
-                                 seq_f, seq_r, loci0, loci1, k=k, u=u,
-                                 lv_variant=lv_variant)
+    boundary like se_ungapped."""
+    v, ovf = _se_gapped_verify(dix, seq_f, seq_r, loci0, loci1, k=k, u=u)
     return _se_gapped_select(v, ovf, k=k, k_hits=k_hits)

@@ -4,10 +4,13 @@ env-gated device profiler.
 The reference's only instrumentation is unstructured stderr logging
 with wall-clock deltas at phase boundaries (Align_src/alnse.c:1360-1365,
 1444-1447; Index_src/index1.c:84,110).  This module supplies the
-TPU-framework equivalents called out in SURVEY.md §5.1/§5.5:
+JAX-side equivalents called out in SURVEY.md §5.1/§5.5:
 
 * ``stage("name")``   — context manager accumulating wall time + call
   counts into a process-wide registry (``metrics_report()`` to dump).
+* ``count("name", n)`` — process-wide event counters (``counts()``):
+  reads sent to gapped LV, SW windows scored on the device, host SSW
+  calls — the proof that each extension path ran.
 * ``progress(...)``   — reference-style stderr progress lines, gated by
   SALT_TPU_VERBOSE (default on, like the reference).
 * ``device_trace()``  — wraps a region in ``jax.profiler.trace`` when
@@ -25,6 +28,7 @@ from collections import defaultdict
 from typing import Dict, Tuple
 
 _STAGES: Dict[str, Tuple[float, int]] = defaultdict(lambda: (0.0, 0))
+_COUNTS: Dict[str, int] = defaultdict(int)
 _T0 = time.time()
 
 
@@ -53,6 +57,15 @@ def stage(name: str):
         dt = time.perf_counter() - t0
         tot, cnt = _STAGES[name]
         _STAGES[name] = (tot + dt, cnt + 1)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to a named event counter."""
+    _COUNTS[name] += n
+
+
+def counts() -> Dict[str, int]:
+    return dict(_COUNTS)
 
 
 def metrics() -> Dict[str, Tuple[float, int]]:

@@ -42,17 +42,25 @@ def load_native():
         srcs = [s for s in srcs if os.path.exists(s)]
         if not srcs:
             return None
+        # build under a per-process name, then rename into place:
+        # concurrent first users (test workers, pipelined jobs) each
+        # see either no library or a complete one, never a partial file
+        tmp = f"{so}.{os.getpid()}.tmp"
         try:
             subprocess.run(
                 ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", so + ".tmp"] + srcs,
-                check=True, capture_output=True, timeout=300,
+                 "-o", tmp] + srcs,
+                check=True, capture_output=True, text=True, timeout=300,
             )
-            os.replace(so + ".tmp", so)
+            os.replace(tmp, so)
             sys.stderr.write(f"[native] built {so}\n")
-        except Exception as e:  # no g++ / compile error: python fallback
+        except (OSError, subprocess.SubprocessError) as e:
+            # no g++ / compile error: python fallback
+            detail = getattr(e, "stderr", None) or ""
             sys.stderr.write(f"[native] build failed ({e}); using python "
-                             f"fallbacks\n")
+                             f"fallbacks\n{detail}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
             return None
     try:
         _LIB = ctypes.CDLL(so)

@@ -136,3 +136,32 @@ def test_distance_device_fuzz(ref):
         want = _ref_distance(ref, texts[i], pats[i], k)
         want = want if want >= 0 else 255
         assert got[i] == min(want, 255), (i, got[i], want)
+
+
+@pytest.mark.parametrize("k", [3, 10, None], ids=["k3", "k10", "kL10"])
+@pytest.mark.parametrize("L", [100, 150, 250])
+def test_distance_device_matches_host(L, k):
+    """The batched device LV equals the independent host
+    computeEditDistance port, over the aligner's gapped-verify text
+    window (L + 4) and the thresholds it uses (k = l_seq // 10)."""
+    import jax.numpy as jnp
+
+    k = L // 10 if k is None else k
+    rng = np.random.default_rng(L * 100 + k)
+    n = 24
+    texts = np.zeros((n, L + 4), dtype=np.uint8)
+    pats = np.zeros((n, L), dtype=np.uint8)
+    for i in range(n):
+        texts[i], pats[i] = _random_case(
+            rng, L=L, err_rate=0.01 * (i % 5), indel_rate=0.01 * (i % 3))
+    codes = np.log2(pats).astype(np.int32)
+    active = np.ones(n, dtype=bool)
+    active[-1] = False
+    got = np.asarray(lv_distance_batch(
+        jnp.asarray(texts.reshape(-1)),
+        jnp.arange(n, dtype=jnp.int32) * (L + 4),
+        jnp.asarray(active), jnp.asarray(codes), k))
+    for i in range(n):
+        want = lv_distance_host(texts[i], pats[i], k)
+        want = 255 if want < 0 or not active[i] else want
+        assert got[i] == want, (i, got[i], want)

@@ -22,25 +22,3 @@ def test_umin_wrapped_bound():
     out = np.asarray(umin(a, jnp.uint32(3_500_000_000))).view(np.uint32)
     assert list(out) == [3_000_000_000, 7, 3_500_000_000]
 
-
-def test_sw_dispatch_fallback_is_loud_once(capsys, monkeypatch):
-    import salt_tpu.ops.sw_batch as swb
-
-    # force the "TPU" path with a kernel that always explodes
-    monkeypatch.setattr("jax.default_backend", lambda: "tpu")
-    import salt_tpu.ops.sw_pallas as swp
-
-    def boom(*a, **k):
-        raise RuntimeError("mosaic says no")
-
-    monkeypatch.setattr(swp, "sw_score_batch_pallas", boom)
-    swb._PALLAS_SW_FAILED.clear()
-    refs = jnp.ones((4, 16), jnp.int32)
-    reads = jnp.ones((4, 8), jnp.int32)
-    lens = jnp.full((4,), 16, jnp.int32)
-    out1 = swb.sw_score_dispatch(refs, reads, lens, snp_mode=True)
-    out2 = swb.sw_score_dispatch(refs, reads, lens, snp_mode=True)
-    err = capsys.readouterr().err
-    assert err.count("FAILED on TPU") == 1   # loud exactly once
-    assert np.array_equal(np.asarray(out1), np.asarray(out2))
-    swb._PALLAS_SW_FAILED.clear()

@@ -74,3 +74,34 @@ def test_sais_u32_repetitive():
         sau.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
         ctypes.c_int64(n))
     assert np.array_equal(sa64, sau.astype(np.int64))
+
+
+def test_concurrent_first_builds_all_load(tmp_path):
+    """Several processes that find no library build it at once; every
+    one of them must end up loading it (no partial-file races)."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if shutil.which("g++") is None:
+        pytest.skip("no g++")
+    (tmp_path / "tools").mkdir()
+    (tmp_path / "salt_tpu" / "utils").mkdir(parents=True)
+    for src in ("sais.cpp", "ssw_native.cpp"):
+        shutil.copy(os.path.join(repo, "tools", src), tmp_path / "tools")
+    native = tmp_path / "salt_tpu" / "utils" / "native.py"
+    shutil.copy(os.path.join(repo, "salt_tpu", "utils", "native.py"), native)
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('n', {str(native)!r})\n"
+        "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m)\n"
+        "print('LOADED' if m.load_native() is not None else 'FALLBACK')\n"
+    )
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(4)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [o.strip() for o, _ in outs] == ["LOADED"] * 4, outs
+    assert not list((tmp_path / "tools").glob("*.tmp"))

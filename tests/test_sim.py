@@ -159,7 +159,7 @@ def test_pe_device_sw_prefilter_identical(tmp_path):
 
 def test_exact_mode_bit_identical_to_c_wgsim(tmp_path):
     """--exact replays the C tool's drand48 sequence: R1/R2/mutations
-    byte-equal for the same seed (VERDICT r3 Missing #2)."""
+    byte-equal for the same seed."""
     import subprocess
 
     from conftest import have_oracle

@@ -5,7 +5,8 @@ import numpy as np
 import pytest
 
 from salt_tpu.ops.ssw import SCORE_MAT5, SCORE_MAT16, ssw_align_py
-from salt_tpu.ops.sw_batch import sw_score_batch, sw_score_numpy
+from salt_tpu.ops.sw_batch import (sw_score_batch, sw_score_numpy,
+                                   sw_score_rows)
 
 ONEHOT = np.array([1, 2, 4, 8, 15], dtype=np.int8)
 
@@ -99,48 +100,56 @@ def test_padding_is_inert():
     assert a[0] == b
 
 
-import pytest
+
+# (read length, window width): the -X 1 extension scores L+5-wide
+# windows (engine._sw_extend_prefilter); PE rescue scores the insert
+# window bucketed to 128 columns (pe_engine._device_sw_scores, 401
+# columns at -a 250 -b 550 and 100bp reads).  "wide" reads exceed 128.
+@pytest.mark.parametrize("snp", [True, False], ids=["snp", "plain"])
+@pytest.mark.parametrize("L,W", [(100, 105), (150, 155), (104, 512),
+                                 (152, 640)],
+                         ids=["x1", "x1_wide", "rescue", "rescue_wide"])
+def test_production_widths_match_naive(snp, L, W):
+    rng = np.random.default_rng(L * 1000 + W + snp)
+    B = 3
+    refs = np.zeros((B, W), np.int32)
+    reads = np.zeros((B, L), np.int32)
+    lens = rng.integers(W // 2, W + 1, B).astype(np.int32)
+    lens[0] = W
+    for i in range(B):
+        codes = rng.integers(0, 4, lens[i])
+        at = int(rng.integers(0, lens[i] - L // 2))
+        read = rng.integers(0, 4, L)
+        n = min(L, lens[i] - at)
+        read[:n] = codes[at : at + n]           # a real (partial) hit
+        read[rng.random(L) < 0.05] = 3          # and some mismatches
+        if snp:
+            ref = ONEHOT[codes].astype(np.int32)
+            ref[rng.random(lens[i]) < 0.03] |= 1 << int(rng.integers(0, 4))
+            refs[i, : lens[i]] = ref
+            reads[i] = ONEHOT[read]
+        else:
+            codes[rng.random(lens[i]) < 0.01] = 4  # N bases
+            refs[i, : lens[i]] = codes
+            reads[i] = read
+    got = np.asarray(sw_score_batch(refs, reads, lens, snp_mode=snp))
+    for i in range(B):
+        want = sw_score_numpy(refs[i, : lens[i]], reads[i], snp)
+        assert got[i] == want, (i, got[i], want)
 
 
-@pytest.mark.parametrize("variant", ["wave", "grid", "fori"])
-def test_pallas_matches_reference(variant, monkeypatch):
-    """Pallas kernel (interpret mode on CPU) == jnp reference scores,
-    for every kernel formulation."""
-    from salt_tpu.ops.sw_pallas import sw_score_batch_pallas
-
-    monkeypatch.setenv("SALT_TPU_SW_KERNEL", variant)
-    rng = np.random.default_rng(5)
-    for snp in (True, False):
-        B = 9
-        cases = [_rand_case(rng, snp, L=33, W=70) for _ in range(B)]
-        W = max(len(c[0]) for c in cases)
-        L = len(cases[0][2])
-        refs = np.zeros((B, W), np.int32)
-        reads = np.zeros((B, L), np.int32)
-        lens = np.zeros(B, np.int32)
-        for i, (ref, onehot, read) in enumerate(cases):
-            refs[i, : len(ref)] = ref
-            reads[i] = onehot if snp else read
-            lens[i] = len(ref)
-        want = np.asarray(sw_score_batch(refs, reads, lens, snp_mode=snp))
-        got = np.asarray(sw_score_batch_pallas(
-            refs, reads, lens, snp_mode=snp, interpret=True))
-        assert (got == want).all(), (snp, got, want)
-
-
-def test_wave_full_length_reads():
-    """The wave kernel at L=100/W=128 (the -X 1 prefilter shape) and at
-    the L=128 lane-capacity edge, mixed ref_len."""
-    from salt_tpu.ops.sw_pallas import sw_score_batch_pallas_wave
-
-    rng = np.random.default_rng(13)
-    for L, W in ((100, 128), (128, 160)):
-        B = 17
-        refs = rng.integers(1, 16, (B, W)).astype(np.int32)
-        reads = (1 << rng.integers(0, 4, (B, L))).astype(np.int32)
-        lens = rng.integers(L // 2, W + 1, B).astype(np.int32)
-        refs[np.arange(W)[None, :] >= lens[:, None]] = 0
-        want = np.asarray(sw_score_batch(refs, reads, lens, snp_mode=True))
-        got = np.asarray(sw_score_batch_pallas_wave(
-            refs, reads, lens, snp_mode=True, interpret=True))
-        assert (got == want).all(), (L, W, got[:8], want[:8])
+def test_rows_padding_is_inert():
+    """sw_score_rows pads the candidate count to a power of two (>= 64);
+    the padding must not change any real row's score."""
+    rng = np.random.default_rng(11)
+    B, L, W = 70, 24, 40
+    refs = (1 << rng.integers(0, 4, (B, W))).astype(np.int32)
+    reads = (1 << rng.integers(0, 4, (B, L))).astype(np.int32)
+    lens = rng.integers(L, W + 1, B).astype(np.int32)
+    refs[np.arange(W)[None, :] >= lens[:, None]] = 0
+    got = sw_score_rows(refs, reads, lens, snp_mode=True)
+    assert got.shape == (B,)
+    want = np.asarray(sw_score_batch(refs, reads, lens, snp_mode=True))
+    assert (got == want).all()
+    assert (sw_score_rows(refs[:5], reads[:5], lens[:5], snp_mode=True)
+            == want[:5]).all()

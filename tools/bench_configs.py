@@ -8,7 +8,7 @@
             reads drawn from the SNP-mutated haplotype
 
 Prints one line per config: build time, load time, reads/s, accuracy.
-Run on the TPU (plain `python`) or CPU (JAX_PLATFORMS=cpu).
+Runs on the default JAX backend (JAX_PLATFORMS=cpu for the CPU).
 """
 
 import os

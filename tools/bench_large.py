@@ -2,7 +2,7 @@
 SNP overlay; measures index build time / peak RSS and SE alignment
 throughput.  The whole-genome path exercises the u32 SA-IS
 (tools/sais.cpp salt_sais_u8_u32) and the sampled-SA runtime — the
-TPU-native answer to the reference's incremental BWT-SW construction
+answer here to the reference's incremental BWT-SW construction
 (Index_src/bwt_gen.c:1400-1538).
 
   python tools/bench_large.py 3100000000 --build-only --save /tmp/big/idx
